@@ -10,8 +10,8 @@ all three export formats.
 
     python examples/end_to_end_synthetic.py [workdir]
 
-Runs on CPU by default (forced below) so it works anywhere; remove the
-config line to run the device stages on an accelerator.
+Runs the device stages on JAX's default device (set JAX_PLATFORMS=cpu
+to run them on the CPU).
 """
 import os
 import sys
@@ -19,7 +19,6 @@ import tempfile
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

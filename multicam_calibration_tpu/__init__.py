@@ -1,10 +1,10 @@
-"""multicam_calibration_tpu — TPU-native multi-camera calibration framework.
+"""multicam_calibration_tpu — multi-camera calibration on an accelerator.
 
-A ground-up JAX/XLA/Pallas re-design with the full capability surface of the
+A ground-up JAX/XLA re-design with the full capability surface of the
 reference package (dattalab-6-cam/multicam-calibration): chessboard detection,
 intrinsics/extrinsics initialization, sparse Schur-complement bundle
 adjustment, triangulation, flatibration, QC visualization, and JSON/JARVIS/
-GIMBAL export — engineered for TPU meshes (frame-axis sharding, XLA
+GIMBAL export — engineered for device meshes (frame-axis sharding, XLA
 collectives) rather than single-process CPU loops.
 """
 

@@ -204,24 +204,26 @@ def cmd_benchmark(args):
 
     import jax
 
-    # Match bench.py's validated numerics: f64 data + f32 Jacobians (pure
-    # f32 stalls at compile-dependent shelves; see lm_core.LMOptions).
+    # f64 data + f32 Jacobians (pure f32 stalls at compile-dependent
+    # shelves; see lm_core.LMOptions).
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
     from . import calibrate, make_synthetic_rig
     from .models.bundle_adjustment import _params_to_arrays
     from .models.lm_core import LMOptions, lm_solve
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     rig = make_synthetic_rig(
         n_cameras=args.n_cameras, n_frames=args.n_frames,
         noise_px=0.3, dropout=0.25, seed=args.seed,
     )
-    with jax.default_device(jax.devices("cpu")[0]):
-        ext, intr, poses, _ = calibrate(
-            rig.all_calib_uvs, rig.img_sizes, rig.calib_objpoints,
-            verbose=False, n_samples_for_intrinsics=50,
-        )
+    ext, intr, poses, _ = calibrate(
+        rig.all_calib_uvs, rig.img_sizes, rig.calib_objpoints,
+        verbose=False, n_samples_for_intrinsics=50,
+    )
     full = ~np.isnan(rig.all_calib_uvs).any((-1, -2))
     use = np.nonzero(full.sum(0) > 1)[0]
     obs_np = rig.all_calib_uvs[:, use]
@@ -231,32 +233,16 @@ def cmd_benchmark(args):
     cam0 = jnp.asarray(_params_to_arrays(ext, intr), dtype=dtype)
     poses0 = jnp.asarray(np.nan_to_num(np.asarray(poses)[use]), dtype=dtype)
     objp = jnp.asarray(rig.calib_objpoints, dtype=dtype)
-    # The shipped TPU mixed recipe (see lm_core.LMOptions / CLAUDE.md);
-    # on CPU the f32 extras cost more than they save and stay off.
-    f32_extras = (
-        {}
-        if jax.default_backend() == "cpu"
-        else dict(
-            block_dtype="float32",
-            cost_dtype="float32",
-            solve_dtype="float32",
-            grad_dtype="float32",
-            gtol_rel=1e-6,
-            lambda_escalation=3.0,
-        )
-    )
-    opts = LMOptions(
-        max_iters=args.max_iters, jac_dtype="float32", **f32_extras
-    )
+    opts = LMOptions(max_iters=args.max_iters, jac_dtype="float32")
 
-    out = lm_solve(cam0, poses0, obs, mask, objp, opts)  # compile
-    _ = np.asarray(out[0])  # host materialization (block_until_ready does
-    # not actually wait on remote-execution backends)
-    t0 = time.time()
-    cam, p, info = lm_solve(cam0 + 1e-6, poses0, obs, mask, objp, opts)
+    jax.block_until_ready(lm_solve(cam0, poses0, obs, mask, objp, opts))
+    t0 = time.perf_counter()
+    out = jax.block_until_ready(
+        lm_solve(cam0 + 1e-6, poses0, obs, mask, objp, opts)
+    )
+    wall = time.perf_counter() - t0
+    info = out[2]
     n_iters = int(info["n_iters"])
-    _ = np.asarray(cam)
-    wall = time.time() - t0
     print(json.dumps({
         "n_cameras": args.n_cameras,
         "n_frames": int(len(use)),
@@ -264,7 +250,8 @@ def cmd_benchmark(args):
         "n_iters": n_iters,
         "iters_per_s": round(n_iters / wall, 2),
         "final_cost": float(info["final_cost"]),
-        "platform": jax.default_backend(),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
     }))
     return 0
 
@@ -272,7 +259,7 @@ def cmd_benchmark(args):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="multicam_calibration_tpu",
-        description="TPU-native multi-camera calibration",
+        description="multi-camera calibration on an accelerator",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 

@@ -1,4 +1,4 @@
-"""Calibration-target detection: board models, TPU corner detector, video IO."""
+"""Calibration-target detection: board models, batched corner detector, video IO."""
 from .board import generate_chessboard_objpoints
 from .detector import (
     detect_chessboard,

@@ -120,7 +120,7 @@ class NativeVideoReader:
 
     API mirrors detection.video.VideoReader (len / index access) plus
     `read_batch(n)` which returns up to n frames as one (n, H, W[, 3])
-    uint8 array — the natural unit for the batched TPU detector.
+    uint8 array — the natural unit for the batched device detector.
     """
 
     def __init__(self, path, gray=False, prefetch=64):

@@ -3,7 +3,7 @@
 Renders the reference's physical target (two-sided checkerboard with a dark
 anchor circle near the top-left corner, docs/source/setup.rst) under
 arbitrary homographies, with ground-truth corner positions. Used to test
-the TPU detector's detection rate and subpixel accuracy without video
+the detector's detection rate and subpixel accuracy without video
 fixtures (the reference snapshot ships none — SURVEY.md §4).
 """
 from __future__ import annotations

@@ -25,6 +25,11 @@ __all__ = [
     "summarize_detections",
 ]
 
+# Frames per device batch in process_video. On an H100, 64 and 256 run at
+# the same end-to-end rate (the host side bounds it; PERF.md), and 64
+# holds a quarter of the frames in device memory.
+BATCH_SIZE = 64
+
 
 def open_video(path, gray=False, prefetch=64):
     """Open a video with the best available backend.
@@ -95,7 +100,7 @@ def process_video(
     n_workers=1,
     frames=None,
     img_size=None,
-    batch_size=None,
+    batch_size=BATCH_SIZE,
 ):
     """Detect the calibration object in one video; cache to HDF5.
 
@@ -115,15 +120,6 @@ def process_video(
     KeyboardInterrupt performs a partial save, like the reference
     (detection.py:98-123).
     """
-    import h5py
-
-    if batch_size is None:
-        # 256 measured fastest on TPU (BENCH_DETECTION r5: 2077 fps vs
-        # 1847 at 128 — the pipeline is device-compute-bound, and 512
-        # regresses); CPU keeps the smaller batch (memory/latency).
-        import jax as _jax
-
-        batch_size = 256 if _jax.default_backend() == "tpu" else 64
     detection_options = detection_options or {}
     reader = None
     if frames is None:
@@ -194,6 +190,8 @@ def process_video(
     else:
         uvs = np.stack([detections[i] for i in frame_ixs])
         qc_data = None
+
+    import h5py
 
     save_path = os.path.splitext(video_path)[0] + ".detections.h5"
     with h5py.File(save_path, "w") as h5:

@@ -72,7 +72,7 @@ def residuals(params, all_calib_uvs, calib_objpoints):
 def bundle_adjustment_sparsity(all_calib_uvs):
     """Jacobian sparsity pattern (scipy.sparse), for interop/debugging.
 
-    Parity: bundle_adjustment.py:101-125. The TPU solver never materializes
+    Parity: bundle_adjustment.py:101-125. The Schur solver never materializes
     this matrix — it exists so reference-style workflows (e.g. handing the
     problem to scipy for cross-validation) keep working.
     """
@@ -212,8 +212,12 @@ import jax as _jax
 from .lm_core import compute_cost as _compute_cost
 from .lm_core import compute_residuals as _compute_residuals
 
-_jit_residuals = _jax.jit(_compute_residuals)
-_jit_cost = _jax.jit(_compute_cost, static_argnames=("opts", "axis_name"))
+from ..ops.precision import with_highest_precision as _highest
+
+_jit_residuals = _jax.jit(_highest(_compute_residuals))
+_jit_cost = _jax.jit(
+    _highest(_compute_cost), static_argnames=("opts", "axis_name")
+)
 
 
 def _emit_lm_history(info, verbose):
@@ -364,9 +368,10 @@ def bundle_adjust(
     ``outlier_threshold`` (default 5 x median error) excluded; random
     subsample to ``n_frames``; then LM with soft-L1 loss and ftol=1e-4.
 
-    TPU extensions: ``dtype`` selects compute precision (f64 on CPU tests,
-    f32 on TPU), ``mesh`` an optional ``jax.sharding.Mesh`` with a 'frames'
-    axis for multi-device BA (see parallel.sharded_bundle_adjust).
+    Extensions: ``dtype`` selects compute precision (default f64 data
+    with f32 Jacobians when x64 is on), ``mesh`` an optional
+    ``jax.sharding.Mesh`` with a 'frames' axis for multi-device BA (see
+    parallel.sharded_bundle_adjust).
 
     Checkpoint/resume (the reference has stage-level caching only,
     SURVEY.md §5): with ``checkpoint_path`` set, optimizer state (params,
@@ -435,49 +440,23 @@ def bundle_adjust(
         cam0 = _params_to_arrays(all_extrinsics, all_intrinsics)
         poses0 = np.asarray(calib_poses)[use_frames]
 
-    # Numerics defaults (see lm_core.LMOptions and CLAUDE.md): the LM needs
-    # f64 residuals/gradients to reach the reference's cost basin reliably —
+    # Numerics defaults (see lm_core.LMOptions): the LM needs f64
+    # residuals/gradients to reach the reference's cost basin reliably —
     # pure f32 stalls at compile-dependent shelves of the soft-L1 valley.
     # With x64 available we run f64 data + f32 Jacobians (measured identical
-    # optimum to pure f64). On TPU (f64 is emulated at ~10-20x f32 cost) the
-    # J^T J blocks, Schur solve, and per-try cost projections also run f32:
-    # measured same-or-deeper final cost (12330.851 vs 12330.859 on the
-    # bench problem) at ~2.4x less wall — only the residual/gradient path
-    # keeps f64, which is what anchors the optimum. On CPU f64 is native
-    # and the all-f64 (+f32 jac) path is faster in wall-clock, so the f32
-    # extras stay off there.
+    # optimum to pure f64).
     default_jac_dtype = None
-    default_f32 = {}
     if dtype is None:
         if _jax.config.jax_enable_x64:
             dtype = jnp.float64
             default_jac_dtype = "float32"
-            if jnp.zeros(0).devices().pop().platform != "cpu":
-                default_f32 = dict(
-                    block_dtype="float32",
-                    cost_dtype="float32",
-                    solve_dtype="float32",
-                    # Per-observation weighting/gradient products in f32
-                    # (residual still formed in f64): removes the last
-                    # emulated-f64 term of the dominant block-build stage.
-                    grad_dtype="float32",
-                    # Stop when the gradient has contracted 6 orders: the
-                    # end-game otherwise polishes gnorm for ~9 extra
-                    # iterations per solve at unchanged cost (the ftol
-                    # patience never accrues there — every round needs
-                    # 2+ damping tries).
-                    gtol_rel=1e-6,
-                    # 26% less wall at the same optimum: end-game damping
-                    # rounds reach a workable lambda in half the tries.
-                    lambda_escalation=3.0,
-                )
         else:
             dtype = jnp.zeros(0).dtype  # backend default (f32)
             import warnings
 
             warnings.warn(
                 "bundle_adjust is running in float32 (jax x64 disabled): "
-                "f32 LM can stall a few percent above the optimum on TPU; "
+                "f32 LM can stall a few percent above the optimum; "
                 "enable x64 (jax.config.update('jax_enable_x64', True)) "
                 "before backend init for reference-grade accuracy",
                 stacklevel=2,
@@ -500,26 +479,13 @@ def bundle_adjust(
         f_scale=opt_kwargs.get("f_scale", 1.0),
         max_iters=opt_kwargs.get("max_iters", 100),
         jac_dtype=opt_kwargs.get("jac_dtype", default_jac_dtype),
-        block_dtype=opt_kwargs.get(
-            "block_dtype", default_f32.get("block_dtype")
-        ),
-        cost_dtype=opt_kwargs.get("cost_dtype", default_f32.get("cost_dtype")),
-        solve_dtype=opt_kwargs.get(
-            "solve_dtype", default_f32.get("solve_dtype")
-        ),
-        grad_dtype=opt_kwargs.get(
-            "grad_dtype", default_f32.get("grad_dtype")
-        ),
-        gtol_rel=opt_kwargs.get(
-            "gtol_rel", default_f32.get("gtol_rel", 0.0)
-        ),
-        lambda_escalation=opt_kwargs.get(
-            "lambda_escalation", default_f32.get("lambda_escalation", 1.0)
-        ),
+        block_dtype=opt_kwargs.get("block_dtype"),
+        cost_dtype=opt_kwargs.get("cost_dtype"),
+        solve_dtype=opt_kwargs.get("solve_dtype"),
+        grad_dtype=opt_kwargs.get("grad_dtype"),
+        gtol_rel=opt_kwargs.get("gtol_rel", 0.0),
+        lambda_escalation=opt_kwargs.get("lambda_escalation", 1.0),
         frame_chunk=opt_kwargs.get("frame_chunk", None),
-        cost_impl=opt_kwargs.get(
-            "cost_impl", default_f32.get("cost_impl", "xla")
-        ),
     )
 
     def _solve(cam_in, poses_in, chunk_opts, init_lam=None, init_grad0=None):
@@ -645,42 +611,12 @@ def bundle_adjust(
             grad_dtype=None,
             max_iters=10,
         )
-        # Small problems polish on the host CPU backend (native f64):
-        # on TPU the emulated-f64 compile alone costs ~40 s per fresh
-        # shape — 400x a toy problem's own solve time — while the CPU
-        # compile+run is ~4 s cold / <0.1 s warm. Large problems stay on
-        # device where the emulated-f64 run is amortized by real work.
-        polish_on_cpu = (
-            mesh is None
-            and _jax.default_backend() != "cpu"
-            and obs.size <= 8_000_000
-        )
-        with metrics.timer("ba.f64_polish", on_cpu=polish_on_cpu):
-            if polish_on_cpu:
-                cpu_dev = _jax.devices("cpu")[0]
-
-                def _put(x):
-                    return _jax.device_put(x, cpu_dev)
-
-                cam_c, poses_c, pinfo = lm_solve(
-                    _put(cam), _put(poses), _put(obs), _put(mask),
-                    _put(objpoints_j), polish_opts,
-                    init_lam=float(info["lambda"]),
-                )
-                dev = next(iter(obs.devices()))
-                cam = _jax.device_put(cam_c, dev)
-                poses = _jax.device_put(poses_c, dev)
-                pinfo = {
-                    k: (float(v) if jnp.ndim(v) == 0 else np.asarray(v))
-                    for k, v in pinfo.items()
-                }
-            else:
-                cam, poses, pinfo = _solve(
-                    cam, poses, polish_opts, init_lam=float(info["lambda"])
-                )
+        with metrics.timer("ba.f64_polish"):
+            cam, poses, pinfo = _solve(
+                cam, poses, polish_opts, init_lam=float(info["lambda"])
+            )
         info = dict(info)
         info["polish_iters"] = int(pinfo["n_iters"])
-        info["polish_on_cpu"] = bool(polish_on_cpu)
         info["final_cost"] = pinfo["final_cost"]
         info["optimality"] = pinfo["optimality"]
         metrics.log(

@@ -78,7 +78,7 @@ def ransac_plane_fit(points, residual_threshold=10.0, n_hypotheses=256, seed=0):
     X = jnp.concatenate([pts[:, :2], jnp.ones((n, 1), pts.dtype)], axis=-1)
     XtX = (X * w[:, None]).T @ X
     Xtz = (X * w[:, None]).T @ pts[:, 2]
-    a, b, t = inv3x3(XtX) @ Xtz  # SPD 3x3; adjugate inverse is TPU-f64-safe
+    a, b, t = inv3x3(XtX) @ Xtz  # SPD 3x3; closed-form adjugate inverse
     return a, b, t, mask
 
 

@@ -1,6 +1,6 @@
 """Calibration initialization: intrinsics, per-frame poses, extrinsics chain.
 
-TPU-native replacement for the reference's OpenCV-backed init stage
+JAX replacement for the reference's OpenCV-backed init stage
 (/root/reference/multicam_calibration/calibration.py):
 
 - ``get_intrinsics`` — replaces cv2.calibrateCamera (calibration.py:68-70):
@@ -156,8 +156,7 @@ def intrinsics_from_homographies_fixed_pp(Hs, valid, image_size):
     wgt = valid.astype(Hs.dtype)[:, None, None]
     A = (A * wgt).reshape(-1, 2)
     r = (r * wgt[..., 0]).reshape(-1)
-    # 2x2 Cramer solve (jnp.linalg.solve lowers to LU, unsupported for
-    # XLA:TPU's emulated f64 — see lm_core's Cholesky-only policy).
+    # 2x2 Cramer solve (closed form; no LU for a 2x2 system).
     ATA = A.T @ A + 1e-12 * jnp.eye(2, dtype=Hs.dtype)
     Ab = A.T @ r
     det = ATA[0, 0] * ATA[1, 1] - ATA[0, 1] * ATA[1, 0]
@@ -211,8 +210,7 @@ def poses_from_homographies(Hs, K):
     from jax.scipy.linalg import solve_triangular
 
     def one(H):
-        # K is upper triangular; jnp.linalg.solve would lower to LU, which
-        # XLA:TPU does not implement for emulated f64.
+        # K is upper triangular: a triangular solve, not a general LU.
         M = solve_triangular(K, H, lower=False)
         lam = 1.0 / jnp.maximum(jnp.linalg.norm(M[:, 0]), 1e-30)
         # Board must be in front of the camera: t_z > 0 fixes the sign.
@@ -249,7 +247,7 @@ def _refine_poses_gn(poses, cam12, calib_uvs, mask, objpoints, n_iters=10):
         J = jax.jacfwd(residual)(pose6, uvs, m)
         H = J.T @ J + 1e-8 * jnp.eye(6, dtype=pose6.dtype)
         g = J.T @ r
-        # H is SPD: Cholesky solve (TPU-safe under emulated f64; LU is not).
+        # H is SPD: Cholesky solve.
         from jax.scipy.linalg import solve_triangular as _st
 
         L = jnp.linalg.cholesky(H)
@@ -468,12 +466,13 @@ def _batched_zhang_init(uvs_s, mask_f, objpoints, image_sizes):
 
 
 @functools.partial(jax.jit, static_argnames=("opts",))
+@with_highest_precision
 def _batched_intrinsics_refine(K_inits, Hs, uvs_s, mask_f, objpoints, opts):
     """vmap the single-camera Schur-LM intrinsics refine over cameras.
 
     One lockstep ``lax.while_loop`` for the whole rig (iterations = the
-    slowest camera's count) instead of C sequential solves — on TPU this is
-    also C dispatches -> 1.
+    slowest camera's count) instead of C sequential solves — also C
+    dispatches -> 1.
     """
 
     def one(K_init, Hs_c, uvs_c, mask_c):
@@ -706,6 +705,7 @@ def consensus_calib_poses(all_calib_poses, all_extrinsics):
 
 
 @jax.jit
+@with_highest_precision
 def _median_reproj_err_jit(calib_uvs, poses, cam12, objpoints):
     pred = jax.vmap(project_board_points, in_axes=(None, 0, None))(
         cam12, poses, objpoints
@@ -857,16 +857,18 @@ def calibrate(
     from ..utils.metrics import metrics
 
     n_cameras = len(all_calib_uvs)
-    # Uniform (C, F, N, 2) detections take the camera-batched device paths
-    # (one program for the rig per stage) on accelerator backends, where
-    # per-camera dispatch dominates. On CPU the sequential loop is faster:
-    # the batched LM runs lockstep (every camera pays the slowest camera's
-    # iteration count) with no dispatch saving to show for it — same
-    # backend-conditional policy as bundle_adjust's auto-numerics. Ragged
-    # per-camera inputs always take the sequential loop.
+    # Uniform (C, F, N, 2) detections may take the camera-batched device
+    # paths (one program for the rig per stage); the batched LM runs
+    # lockstep (every camera pays the slowest camera's iteration count), so
+    # which is faster depends on the backend (backend.init_camera_batched).
+    # Ragged per-camera inputs always take the sequential loop.
+    from .. import backend
+
     try:
         uvs_arr = np.asarray(all_calib_uvs, dtype=float)
-        batched = uvs_arr.ndim == 4 and jax.default_backend() != "cpu"
+        batched = uvs_arr.ndim == 4 and backend.init_camera_batched(
+            backend.platform()
+        )
     except ValueError:  # pragma: no cover - ragged input
         batched = False
     if verbose:
@@ -895,7 +897,7 @@ def calibrate(
         if batched:
             # np.array (copy), NOT np.asarray: asarray of a JAX array is a
             # READ-ONLY view, and _repair_bad_intrinsics mutates rows in
-            # place (crashed on TPU rigs with a repairable camera).
+            # place (crashed on rigs with a repairable camera).
             all_calib_poses = np.array(
                 estimate_pose_batch(
                     uvs_arr,

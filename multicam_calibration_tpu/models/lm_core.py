@@ -3,15 +3,14 @@
 This module replaces the reference's entire refinement stack —
 scipy.optimize.least_squares(method='trf', jac_sparsity=...) with
 finite-difference grouped Jacobians (bundle_adjustment.py:301-313) — with a
-TPU-first design:
+design for an accelerator:
 
 - **Analytic Jacobians**: each observation block (camera c, frame f) touches
   exactly 12 camera params + 6 pose params; ``jax.jacfwd`` over the
   per-(c,f) projection yields the closed 18-wide blocks, batched with vmap.
   The big sparse J is never materialized.
 - **Block normal equations**: per-camera 12x12 blocks U_c, per-frame 6x6
-  blocks V_f, cross blocks W_cf, assembled by einsum (MXU-friendly batched
-  matmuls).
+  blocks V_f, cross blocks W_cf, assembled by einsum (batched matmuls).
 - **Schur complement**: eliminate the frame-pose blocks (batched 6x6
   solves — embarrassingly parallel over the frame axis), reduce the dense
   camera system S (12C x 12C) with a single ``psum`` over the frame-sharded
@@ -20,7 +19,7 @@ TPU-first design:
   scaling playbook applied to BA (SURVEY.md §5 long-context analogue).
 - **Robust loss**: soft-L1 via IRLS weights (parity with loss='soft_l1');
   Jacobi equilibration of both solves stands in for x_scale='jac' and keeps
-  float32 TPU solves well-conditioned.
+  float32 solves well-conditioned.
 - **Static shapes**: missing observations are weight-0 mask entries, never
   gathers; frozen parameters (e.g. root-camera gauge or intrinsics-only
   solves) are handled by masking Jacobian columns.
@@ -105,11 +104,11 @@ class LMOptions:
     # Consecutive sub-ftol easy steps required to declare convergence. f32
     # step noise produces isolated spuriously-slow iterations mid-descent;
     # with patience=1 those stop the optimizer at compile-dependent shelves
-    # of the valley (observed 6x run-to-run final-cost spread on TPU).
+    # of the valley (observed 6x run-to-run final-cost spread).
     ftol_patience: int = 2
     # Solve precision for the Schur reduction/back-substitution. None keeps
     # the data dtype. "float64" buys f64 step quality while the bulk FLOPs
-    # (block building on the MXU) stay f32 — the damped camera system is
+    # (block building) stay f32 — the damped camera system is
     # conditioned like 1/lambda, which f32 alone cannot solve accurately
     # (requires jax x64 mode to be enabled).
     solve_dtype: str | None = None
@@ -118,14 +117,12 @@ class LMOptions:
     # fixed point is where the GRADIENT vanishes — it needs f64 because
     # obs-pred cancels ~4 digits) while the approximate-Hessian Jacobians
     # tolerate f32: measured identical final cost and iteration count to
-    # pure f64 at ~1.6x less wall on TPU (f64 there is emulated).
+    # pure f64.
     jac_dtype: str | None = None
     # Precision for the J^T J block einsums (U/V/W) only; results are cast
     # back to the data dtype. The gradient einsums (J^T r) and the residual
     # stay in the data dtype — they are the precision-critical path (obs-pred
-    # cancels ~4 digits). On TPU, f64 is emulated at ~10-20x f32 cost and
-    # the U/V/W einsums are the largest emulated term of the iteration, so
-    # block_dtype="float32" under f64 data removes most of it while changing
+    # cancels ~4 digits). block_dtype="float32" under f64 data changes
     # U/V/W entries only at f32 rounding (~1e-7 relative) — the approximate
     # Hessian, like jac_dtype, tolerates that.
     block_dtype: str | None = None
@@ -133,8 +130,8 @@ class LMOptions:
     # residual is formed in this dtype then accumulated in the data dtype:
     # at 0.3 px residuals on ~300 px coordinates, f32 rounding perturbs the
     # total cost by ~1e-2 absolute (~1e-6 relative), far below the ftol
-    # acceptance granularity (~1e-4 relative). Cuts the emulated-f64
-    # forward projections (one per damping try) to f32.
+    # acceptance granularity (~1e-4 relative). Runs the forward
+    # projections (one per damping try) in f32.
     cost_dtype: str | None = None
     # Precision for the per-observation weighting + gradient PRODUCTS in
     # the block build. The residual r = obs - pred is still formed in the
@@ -144,9 +141,7 @@ class LMOptions:
     # the optimum's ~0 gradient emerges); only the per-observation products
     # A*w and sum_n A*(r*w) within one frame (N<=~100 terms, ~1e-7 relative
     # rounding of a correctly-computed f64 residual value) run in this
-    # dtype. On TPU this removes the last per-observation emulated-f64 term
-    # of the dominant block-build stage (measured 97% of iteration wall at
-    # 64 cams x 20k frames).
+    # dtype.
     grad_dtype: str | None = None
     # Frames per linearization chunk. None materializes all (C, F) Jacobian
     # blocks in one shot (fastest for small problems). An int bounds peak
@@ -157,41 +152,12 @@ class LMOptions:
     # Observation-sparse in effect: unobserved (camera, frame) pairs cost
     # FLOPs inside a chunk but never persist blocks.
     frame_chunk: int | None = None
-    # Block-build implementation. "auto" uses the fused Pallas kernel
-    # (ops/ba_pallas.py) on TPU backends whenever the options match what it
-    # hardcodes (analytic Jacobian, the all-f32 jac/block/grad/cost recipe,
-    # soft_l1/linear loss, N*2 <= 128 board points) and falls back to the
-    # XLA path otherwise; "xla" forces the XLA path; "pallas" forces the
-    # kernel (interpret mode off-TPU — slow, for tests). The kernel fuses
-    # the whole linearization into one pass: a compensated two-float f32
-    # prediction chain stands in for the emulated-f64 residual (same
-    # accuracy class; tests/test_ba_pallas.py pins it against the f64
-    # oracle) and the Jacobian rows never touch HBM. Hardware-default
-    # policy (round-3 regression lesson): the auto routing is valid only
-    # with a passing same-commit TPU_PARITY.json from
-    # scripts/tpu_parity.py — interpret-mode tests cannot see compiled-
-    # Mosaic behavior (the r3 kernel lacked an MXU precision request and
-    # produced bf16-truncated blocks on hardware only).
-    block_impl: str = "auto"
-    # Per-try cost-evaluation implementation. "pallas" runs the fused
-    # cost kernel (ops/ba_pallas.ba_chunk_cost): the SAME two-float f32
-    # prediction chain as the block-build kernel, emitting only per-(c,f)
-    # cost fragments — f64-grade residual accuracy, strictly tighter than
-    # the cost_dtype="float32" XLA path it replaces, with no emulated-f64
-    # or Jacobian HBM traffic. Requires the kernel preconditions
-    # (soft_l1/linear loss, N*2 <= 128, cost_dtype="float32"). "auto"
-    # selects it on TPU exactly when those hold; "xla" never. Hardware-
-    # default policy applies (CLAUDE.md): "auto" may only route here with
-    # a passing same-commit TPU_PARITY.json — scripts/tpu_parity.py
-    # covers the cost kernel alongside the block kernel.
-    cost_impl: str = "xla"
     # Jacobian construction. "analytic": closed-form chain-rule blocks
     # computed batched over (C, F, N) in one shot — ~18x fewer FLOPs than
     # the 18-tangent jacfwd (each tangent re-runs ~the primal) and the
     # U/V/W assembly becomes full-contraction einsums (contraction axes
-    # F*N*2 / C*N*2 instead of per-(c,f) N*2=70-wide matmuls), the MXU-
-    # friendly shape the r2 verdict demanded. "jacfwd": the original
-    # per-(c,f) jax.jacfwd path, kept as the autodiff oracle the analytic
+    # F*N*2 / C*N*2 instead of per-(c,f) N*2=70-wide matmuls). "jacfwd":
+    # the original per-(c,f) jax.jacfwd path, kept as the autodiff oracle the analytic
     # blocks are tested against (they agree to f64 roundoff; see
     # tests/test_lm_analytic_jac.py). One behavioral difference: with
     # block_dtype="float32" the analytic path accumulates U/V/W over the
@@ -283,36 +249,6 @@ def _robust_cost(r2_masked, opts: LMOptions, axis=None):
     return 0.5 * fs2 * jnp.sum(2.0 * (jnp.sqrt(1.0 + z) - 1.0), axis=axis)
 
 
-def _pallas_cost_eval(opts: LMOptions, data_dtype, objpoints) -> bool:
-    """Dispatch: route compute_cost through the fused cost kernel?
-
-    Mirrors ``_pallas_block_build``: "xla" never, "pallas" forces (and
-    validates the preconditions), "auto" takes it on TPU when the shipped
-    recipe holds. The kernel's two-float chain is strictly MORE accurate
-    than the cost_dtype="float32" XLA projection it replaces, so the
-    precondition is on the f32-cost recipe, not on f64 parity.
-    """
-    impl = getattr(opts, "cost_impl", "xla")
-    if impl == "xla":
-        return False
-    ok = (
-        opts.loss in ("soft_l1", "linear")
-        and objpoints.shape[0] * 2 <= 128
-        and opts.cost_dtype is not None
-        and jnp.dtype(opts.cost_dtype) == jnp.dtype("float32")
-    )
-    if impl == "pallas":
-        if not ok:
-            raise ValueError(
-                "cost_impl='pallas' requires soft_l1/linear loss, "
-                "N*2 <= 128 board points, and cost_dtype='float32'"
-            )
-        return True
-    from ..ops.pallas_kernels import on_tpu
-
-    return ok and on_tpu()
-
-
 @with_highest_precision
 def compute_cost(cam_params, pose_params, obs, mask, objpoints, opts, axis_name=None):
     """Robust cost over (optionally frame-sharded) observations.
@@ -320,28 +256,10 @@ def compute_cost(cam_params, pose_params, obs, mask, objpoints, opts, axis_name=
     With ``opts.cost_dtype`` set, the forward projection and residual run in
     that dtype and only the reduction runs in the data dtype (see LMOptions).
     Carries its own fp32-matmul-precision context: a caller jitting this
-    standalone (outside lm_solve's context) must not silently get bf16
-    MXU projections — that inflates the f32-projected cost ~12x.
-
-    With ``opts.cost_impl`` routing to the fused Pallas kernel, the
-    projection runs the block-build kernel's compensated two-float chain
-    instead (f64-grade residual; per-(c,f) f32 fragments reduced here in
-    the data dtype — the same contract as the XLA fragments).
+    standalone (outside lm_solve's context) must not silently get
+    reduced-precision (TF32) f32 projections.
     """
     dtype = cam_params.dtype
-    if _pallas_cost_eval(opts, dtype, objpoints):
-        from ..ops.ba_pallas import ba_chunk_cost, ba_prepare_obs
-
-        # Loop-invariant under lm_solve's while loop; XLA hoists it.
-        obs_hi, obs_lo, msk = ba_prepare_obs(obs, mask)
-        frags = ba_chunk_cost(
-            cam_params, pose_params, obs_hi, obs_lo, msk, objpoints,
-            f_scale=opts.f_scale, loss_linear=(opts.loss == "linear"),
-        )
-        cost = frags.astype(dtype).sum()
-        if axis_name is not None:
-            cost = lax.psum(cost, axis_name)
-        return cost
     cd = jnp.dtype(opts.cost_dtype) if opts.cost_dtype else None
     if cd is not None and cd != dtype:
         r = compute_residuals(
@@ -387,49 +305,6 @@ def _pvary(tree, axis_name):
     )
 
 
-def _pallas_block_build(opts: LMOptions, data_dtype, objpoints) -> bool:
-    """Dispatch: can/should this build run the fused Pallas kernel?
-
-    The kernel hardcodes the shipped TPU recipe — analytic Jacobians, all
-    per-observation work in f32 over a two-float residual, soft_l1/linear
-    loss, one 128-lane tile of (point, u/v) pairs per frame. ``auto``
-    takes it exactly when those hold on a TPU backend; ``pallas`` forces
-    it (interpret mode off-TPU — for tests); ``xla`` never. The auto
-    routing is certified by scripts/tpu_parity.py ON THE REAL CHIP
-    (TPU_PARITY.json, kernel-vs-oracle blocks ~1e-6 rel + full-descent
-    cost match; CLAUDE.md hardware-default policy) — any change to this
-    kernel or dispatch must re-run that battery before shipping.
-    """
-    impl = getattr(opts, "block_impl", "auto")
-    if impl == "xla":
-        return False
-    f32 = jnp.dtype("float32")
-
-    def eff(v):
-        return jnp.dtype(v) if v else jnp.dtype(data_dtype)
-
-    ok = (
-        opts.jacobian == "analytic"
-        and objpoints.shape[0] * 2 <= 128
-        and opts.loss in ("soft_l1", "linear")
-        and all(
-            eff(v) == f32
-            for v in (opts.jac_dtype, opts.block_dtype, opts.grad_dtype,
-                      opts.cost_dtype)
-        )
-    )
-    if impl == "pallas":
-        if not ok:
-            raise ValueError(
-                "block_impl='pallas' requires the analytic all-f32 recipe "
-                "and N*2 <= 128 board points"
-            )
-        return True
-    from ..ops.pallas_kernels import on_tpu
-
-    return ok and on_tpu()
-
-
 def build_normal_blocks(
     cam_params, pose_params, obs, mask, objpoints, opts: LMOptions,
     cam_free=None, pose_free=None, axis_name=None,
@@ -447,13 +322,6 @@ def build_normal_blocks(
     F = pose_params.shape[0]
 
     data_dtype = cam_params.dtype
-    use_pallas = _pallas_block_build(opts, data_dtype, objpoints)
-    if use_pallas:
-        from ..ops.ba_pallas import ba_chunk_blocks, ba_prepare_obs
-
-        # Constant across damping tries/iterations; XLA's loop-invariant
-        # code motion hoists it out of lm_solve's while loop.
-        pobs = ba_prepare_obs(obs, mask)
 
     def per_cf(cam12, pose6, obs_cf, mask_cf):
         keep_jac = opts.grad_dtype is not None and opts.jac_dtype is not None
@@ -509,23 +377,7 @@ def build_normal_blocks(
         the frame/camera sums and the result is identical to masking each
         (c, f) block before reduction.
         """
-        if use_pallas:
-            # obs_k is the (obs_hi, obs_lo, msk) lane-layout triple.
-            Uf, Vf, Wf, gcam_f, gpose_f, cost_f = ba_chunk_blocks(
-                cam_params, pose_k, *obs_k, objpoints,
-                f_scale=opts.f_scale,
-                loss_linear=(opts.loss == "linear"),
-            )
-            # Same dtype contracts as the XLA analytic path: U/V/W
-            # accumulated f32 within the slab, gradient frame/camera
-            # reductions and the cost reduction in the data dtype.
-            U = Uf.astype(data_dtype)
-            V = Vf.astype(data_dtype)
-            W = Wf.astype(data_dtype)
-            g_cam = gcam_f.astype(data_dtype).sum(1)
-            g_pose = gpose_f.astype(data_dtype).sum(0)
-            cost = cost_f.astype(data_dtype).sum()
-        elif opts.jacobian == "analytic":
+        if opts.jacobian == "analytic":
             U, V, W, g_cam, g_pose, cost = _linearize_analytic(
                 cam_params, pose_k, obs_k, mask_k, objpoints, opts
             )
@@ -554,7 +406,7 @@ def build_normal_blocks(
     chunk = opts.frame_chunk
     if chunk is None or chunk >= F:
         U, V, W, g_cam, g_pose, cost = linearize(
-            pose_params, pobs if use_pallas else obs, mask, pose_free
+            pose_params, obs, mask, pose_free
         )
         return NormalBlocks(U=U, V=V, W=W, g_cam=g_cam, g_pose=g_pose, cost=cost)
 
@@ -572,17 +424,9 @@ def build_normal_blocks(
         return jnp.pad(x, widths)
 
     pose_c = pad_frames(pose_params, 0).reshape(nc, chunk, 6)
-    if use_pallas:
-        obs_c = tuple(
-            jnp.moveaxis(
-                pad_frames(x, 1).reshape(C, nc, chunk, x.shape[-1]), 1, 0
-            )
-            for x in pobs
-        )
-    else:
-        obs_c = jnp.moveaxis(
-            pad_frames(obs, 1).reshape(C, nc, chunk, *obs.shape[2:]), 1, 0
-        )
+    obs_c = jnp.moveaxis(
+        pad_frames(obs, 1).reshape(C, nc, chunk, *obs.shape[2:]), 1, 0
+    )
     mask_c = jnp.moveaxis(
         pad_frames(mask, 1).reshape(C, nc, chunk, *mask.shape[2:]), 1, 0
     )
@@ -649,43 +493,12 @@ def _analytic_pred_and_jacs(cam_params, pose_params, objpoints, jac_dtype=None):
     R_c = so3_exp(rvec)  # (C,3,3)
     R_p = so3_exp(rho)  # (F,3,3)
 
-    # With f64 data the two 3-long matvecs of the PRIMAL chain are written
-    # as explicit broadcast multiply-adds, not einsums: an emulated-f64
-    # einsum takes XLA:TPU's emulated-matmul path (measured 1.8x of the
-    # whole 64cam x 20k block build; elementwise double-f32 arithmetic on
-    # the VPU is what the emulation does well). In f32 the einsum form is
-    # ~20% faster (measured), so it stays the non-emulated path.
-    emulated = dtype == jnp.float64 and jax.default_backend() != "cpu"
-
-    def matvec3(R, v, batch_R_left):
-        """R (A,3,3) applied to v (B,N,3) -> (A or B leading) 3-vectors."""
-        if batch_R_left:  # (C,3,3) x (F,N,3) -> (C,F,N,3)
-            Rb_ = R[:, None, None]  # (C,1,1,3,3)
-            vb = v[None]  # (1,F,N,3)
-        else:  # (F,3,3) x (N,3) -> (F,N,3)
-            Rb_ = R[:, None]  # (F,1,3,3)
-            vb = v[None]  # (1,N,3)
-        return jnp.stack(
-            [
-                Rb_[..., i, 0] * vb[..., 0]
-                + Rb_[..., i, 1] * vb[..., 1]
-                + Rb_[..., i, 2] * vb[..., 2]
-                for i in range(3)
-            ],
-            axis=-1,
-        )
-
-    if emulated:
-        Rb = matvec3(R_p, objpoints, batch_R_left=False)  # (F,N,3)
-        p_w = Rb + tp[:, None, :]
-        q = matvec3(R_c, p_w, batch_R_left=True) + tvec[:, None, None, :]
-    else:
-        Rb = jnp.einsum("nj,fij->fni", objpoints, R_p)  # (F,N,3)
-        p_w = Rb + tp[:, None, :]
-        q = jnp.einsum("fnj,cij->cfni", p_w, R_c) + tvec[:, None, None, :]
+    Rb = jnp.einsum("nj,fij->fni", objpoints, R_p)  # (F,N,3)
+    p_w = Rb + tp[:, None, :]
+    q = jnp.einsum("fnj,cij->cfni", p_w, R_c) + tvec[:, None, None, :]
     Z = q[..., 2]
     Zs = jnp.where(jnp.abs(Z) < 1e-12, jnp.ones_like(Z), Z)
-    invZp = 1.0 / Zs  # one (emulated-f64) division per point, not two
+    invZp = 1.0 / Zs  # one f64 division per point, not two
     x, y = q[..., 0] * invZp, q[..., 1] * invZp
     r2 = x * x + y * y
     k1b, k2b = k1[:, None, None], k2[:, None, None]
@@ -755,8 +568,8 @@ def _linearize_analytic(cam_params, pose_params, obs, mask, objpoints, opts):
     Returns (U (C,12,12), V (F,6,6), W (C,F,12,6), g_cam (C,12),
     g_pose (F,6), cost) — the same local sums as the jacfwd path, but the
     U/V/W assembly runs as FULL-contraction einsums (contraction axes
-    F*N*2 resp. C*N*2 instead of 70-wide per-(c,f) matmuls): the MXU sees
-    a few large matmuls per slab instead of C*F tiny ones.
+    F*N*2 resp. C*N*2 instead of 70-wide per-(c,f) matmuls): a few large
+    matmuls per slab instead of C*F tiny ones.
 
     Precision contracts (LMOptions.jac/block/grad_dtype) are preserved:
     the residual is formed in the data dtype, per-observation products run
@@ -776,10 +589,8 @@ def _linearize_analytic(cam_params, pose_params, obs, mask, objpoints, opts):
     # cancels ~4 digits; formed in the data dtype above). The robust WEIGHT
     # w = sqrt(rho'(r^2)) and the per-observation loss rho(r^2) are smooth
     # functions of an already-accurate r — no cancellation — so with the
-    # grad_dtype/cost_dtype contracts opted in they run in those dtypes:
-    # on TPU this removes the emulated-f64 pow/sqrt over every observation
-    # (measured a dominant term of the config-5 block build). The cost's
-    # cross-frame accumulation still runs in the data dtype.
+    # grad_dtype/cost_dtype contracts opted in they run in those dtypes.
+    # The cost's cross-frame accumulation still runs in the data dtype.
     r_g = r.astype(gd)
     w = jnp.where(m, _robust_weights(r_g**2, opts), 0.0)
     rho = _robust_cost(
@@ -834,9 +645,8 @@ def _value_and_jacs(cam12, pose6, objpoints, jac_dtype=None,
 def _spd_solve(M, b):
     """Solve SPD M x = b via Cholesky (batched over leading dims).
 
-    Cholesky instead of LU: the normal blocks are SPD by construction, it's
-    ~2x cheaper, and XLA:TPU lowers Cholesky/TriangularSolve to matmul loops
-    that support f64 (LuDecomposition is f32-only on TPU).
+    Cholesky instead of LU: the normal blocks are SPD by construction and
+    it's ~2x cheaper.
     """
     from jax.scipy.linalg import solve_triangular
 

@@ -20,8 +20,7 @@ extrinsics are frozen — uncertainties are *relative to the root-camera
 frame*, which is also how the calibration itself is parameterized
 (reference calibration.py:200-236 chains from the root).
 
-All solves are SPD Cholesky (TPU-safe: XLA:TPU's emulated f64 implements
-Cholesky but not LU).
+All solves are SPD Cholesky (the normal matrices need no pivoting).
 """
 from __future__ import annotations
 
@@ -29,6 +28,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from ..ops.precision import with_highest_precision
 from .lm_core import (
     LMOptions,
     _blockdiag_embed,
@@ -49,6 +49,7 @@ def _free_mask(n_cameras, root, dtype):
 
 
 @jax.jit
+@with_highest_precision
 def _uncertainty_impl(cam, poses, obs, mask, objpoints, cam_free):
     opts = LMOptions(loss="soft_l1", f_scale=1.0)
     blocks = build_normal_blocks(

@@ -1,4 +1,4 @@
-"""Geometry + image compute ops: the JAX/Pallas foundation layer.
+"""Geometry + image compute ops: the JAX foundation layer.
 
 Everything here is a pure function (vmap/jit/grad-safe) — this layer replaces
 the reference's geometry.py plus its OpenCV/LAPACK delegates (SURVEY.md §2).

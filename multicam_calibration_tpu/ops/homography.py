@@ -1,6 +1,6 @@
 """Batched planar homography ops (DLT fit, application, image warping).
 
-TPU-native replacement for the reference's OpenCV homography delegates
+JAX replacement for the reference's OpenCV homography delegates
 (cv2.findHomography at detection.py:291, cv2.getPerspectiveTransform /
 cv2.warpPerspective at detection.py:417-433, cv2.perspectiveTransform at
 viz.py:168-171): a Hartley-normalized DLT solved as a batched SVD, an exact
@@ -41,9 +41,9 @@ def _normalization_transform(pts):
 def inv3x3(M):
     """Closed-form (adjugate) 3x3 inverse, batched over leading dims.
 
-    jnp.linalg.inv lowers to LuDecomposition, which XLA:TPU implements only
-    for f32/c64 — this keeps every homography path usable under emulated
-    f64 on TPU. Singular inputs produce inf/NaN, matching LU behavior.
+    Closed form instead of an LU decomposition: one fused elementwise
+    computation for any batch. Singular inputs produce inf/NaN, matching
+    LU behavior.
     """
     a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
@@ -83,8 +83,8 @@ def fit_homography(src, dst, weights=None, method="eigh"):
       eigendecomposition — handles every homography including those with
       h33 ~ 0 after normalization.
     - ``"solve"``: gauge-fix h33 = 1 and solve the 8x8 normal equations
-      (one fused Cholesky-style solve). Measured ~10x cheaper than eigh's
-      iterative Jacobi sweeps on TPU, and Hartley normalization keeps
+      (one fused Cholesky-style solve), cheaper than eigh's iterative
+      Jacobi sweeps; Hartley normalization keeps
       h33 = 1 valid for the near-affine grid/anchor homographies the
       detection fast path fits (a true h33 ~ 0 view is a board seen
       edge-on — rejected upstream long before the fit).
@@ -115,8 +115,8 @@ def fit_homography(src, dst, weights=None, method="eigh"):
         A8, a9 = A[..., :8], A[..., 8]
         N8 = jnp.einsum("...ni,...nj->...ij", A8, A8)
         g8 = jnp.einsum("...ni,...n->...i", A8, a9)
-        # SPD solve via Cholesky (TPU lowers LU only for f32 — the SPD
-        # normal matrix needs no pivoting at any dtype).
+        # SPD solve via Cholesky (the SPD normal matrix needs no
+        # pivoting at any dtype).
         eye8 = jnp.eye(8, dtype=A.dtype)
         tr = jnp.trace(N8, axis1=-2, axis2=-1)[..., None, None]
         L = jnp.linalg.cholesky(N8 + 1e-9 * tr * eye8)
@@ -130,8 +130,7 @@ def fit_homography(src, dst, weights=None, method="eigh"):
         _, vecs = jnp.linalg.eigh(ATA)
         h = vecs[..., :, 0]
     Hn = h.reshape(*h.shape[:-1], 3, 3)
-    # Td is an upper-triangular similarity -> triangular solve (TPU has no
-    # f64 LU lowering; see inv3x3).
+    # Td is an upper-triangular similarity -> triangular solve.
     from jax.scipy.linalg import solve_triangular
 
     H = solve_triangular(Td, Hn @ Ts, lower=False)

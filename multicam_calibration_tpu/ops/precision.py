@@ -1,12 +1,14 @@
-"""Matmul-precision control for TPU numerical correctness.
+"""Matmul-precision control for float32 numerical correctness.
 
-On TPU, jnp matmul/einsum default to bfloat16 MXU passes. Calibration
-geometry multiplies ~10^3-magnitude coordinates (mm translations, pixel
-focal lengths); an 8-bit mantissa injects ~mm-scale noise that dominates the
-sub-pixel residuals BA minimizes. Every jitted entry point on the compute
-path therefore traces under ``jax.default_matmul_precision('highest')``
-(fp32-equivalent multi-pass on the MXU — these are small matmuls, so the
-extra passes are free relative to HBM traffic).
+On an NVIDIA GPU, XLA may run float32 matmuls, einsums and convolutions in
+TF32 on the tensor cores, which keeps a 10-bit mantissa (~1e-3 relative).
+Calibration geometry multiplies ~10^3-magnitude coordinates (mm
+translations, pixel focal lengths), and the detector samples images with
+one-hot selection matmuls; at TF32 precision the rounding is mm-scale
+noise on the sub-pixel residuals BA minimizes. Every jitted entry point on
+the compute path therefore traces under
+``jax.default_matmul_precision('highest')`` (true float32 products — these
+are small matmuls, so the lost tensor-core rate costs little).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ __all__ = ["with_highest_precision"]
 
 
 def with_highest_precision(fn):
-    """Decorator: trace ``fn`` with fp32-accurate MXU matmuls."""
+    """Decorator: trace ``fn`` with full-float32 (not TF32) matmuls."""
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):

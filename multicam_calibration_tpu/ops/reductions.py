@@ -3,7 +3,7 @@
 The reference leans on ``np.nanmedian``/``np.median`` for every robust
 consensus step (pairwise-transform median calibration.py:143, consensus pose
 nanmedian calibration.py:276, triangulation nanmedian geometry.py:427-433).
-On TPU, NaN-based dynamic filtering is replaced by explicit masks with static
+On the device, NaN-based dynamic filtering is replaced by explicit masks with static
 shapes; these sort-based reductions reproduce numpy's nanmedian semantics
 (average of the two middle elements for even counts) under jit/vmap.
 """
@@ -32,7 +32,7 @@ def masked_median(values, mask, axis=-1):
     if count <= 32:
         # Small-axis fast path: stable rank selection. O(count^2) fused
         # elementwise comparisons beat XLA's generic variadic sort by ~4x
-        # (CPU and TPU alike — it's pure VPU work, no comparator loop).
+        # (pure elementwise work, no comparator loop).
         idx = jnp.arange(count)
         cmp = (filled[..., None, :] < filled[..., :, None]) | (
             (filled[..., None, :] == filled[..., :, None])

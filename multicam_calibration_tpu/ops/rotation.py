@@ -1,6 +1,6 @@
 """SO(3) rotation ops: axis-angle <-> rotation matrix, batched and jit-safe.
 
-TPU-native re-design of the reference's Rodrigues helpers
+JAX re-design of the reference's Rodrigues helpers
 (/root/reference/multicam_calibration/geometry.py:8-65). Everything here is a
 pure function over jnp arrays, differentiable, vmap-able, and safe at the
 theta=0 singularity (uses Taylor-stable sinc forms instead of dividing by

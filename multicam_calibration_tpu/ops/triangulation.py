@@ -1,6 +1,6 @@
 """Robust multi-view triangulation, batched over camera pairs and points.
 
-TPU-native replacement for the reference ``triangulate``
+JAX replacement for the reference ``triangulate``
 (/root/reference/multicam_calibration/geometry.py:361-433) and its
 cv2.triangulatePoints delegate: per-pair DLT is a batched 4x4 symmetric
 eigensolve over (n_pairs, n_points), followed by a masked median across the
@@ -22,6 +22,7 @@ from .projection import (
     normalize_points,
     undistort_normalized,
 )
+from .precision import with_highest_precision
 from .reductions import masked_median
 from .transforms import get_transformation_matrix
 
@@ -104,6 +105,7 @@ def _sym3_solve(N3, g, eps=1e-12):
 
 
 @functools.partial(jax.jit, static_argnames=("refine",))
+@with_highest_precision
 def _triangulate_impl(uvs, Ks, dists, exts, r2_maxs, refine=False):
     """One fused program for the whole robust-triangulation pipeline.
 

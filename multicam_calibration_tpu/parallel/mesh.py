@@ -9,9 +9,11 @@ __all__ = ["make_frame_mesh"]
 def make_frame_mesh(n_devices=None, axis_name="frames"):
     """1-D mesh over the frame axis (the BA scaling axis).
 
-    Uses all visible devices by default. Multi-host entry: call
+    Uses all visible devices by default. The mesh follows the algorithm
+    alone: the GPUs of one host are peers over NVLink, all to all, so the
+    device order does not matter. Multi-host entry: call
     ``jax.distributed.initialize()`` first and this picks up the global
-    device set; collectives ride ICI within a slice.
+    device set.
     """
     devices = jax.devices()
     if n_devices is not None:

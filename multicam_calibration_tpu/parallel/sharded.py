@@ -24,7 +24,6 @@ __all__ = ["sharded_lm_solve", "sharded_triangulate"]
 @functools.lru_cache(maxsize=32)
 def _build_sharded_solver(
     mesh, opts, axis_name, with_cam_free, with_init_lam, with_init_grad0,
-    check_vma=True,
 ):
     """Cached jitted shard_map solver (keyed by mesh + options)."""
 
@@ -45,26 +44,8 @@ def _build_sharded_solver(
             P(), P(),
         ),
         out_specs=(P(), P(axis_name), P()),
-        check_vma=check_vma,
     )
     return jax.jit(fn)
-
-
-def _solver_check_vma(opts, data_dtype, objpoints) -> bool:
-    """vma tracking on, EXCEPT when the fused Pallas kernels would run in
-    interpret mode inside shard_map: the pallas HLO interpreter's block
-    fetches are dynamic_slices of varying operands with unvarying
-    program-id indices, which check_vma rejects (jax 0.9; CPU test meshes
-    only — compiled Mosaic on hardware never runs the interpreter and
-    keeps full vma checking, with the kernels' out_shape declaring their
-    varying axes via ops.ba_pallas._out_sds)."""
-    from ..models.lm_core import _pallas_block_build, _pallas_cost_eval
-    from ..ops.pallas_kernels import on_tpu
-
-    uses_pallas = _pallas_block_build(
-        opts, data_dtype, objpoints
-    ) or _pallas_cost_eval(opts, data_dtype, objpoints)
-    return not (uses_pallas and not on_tpu())
 
 
 def sharded_lm_solve(
@@ -104,7 +85,6 @@ def sharded_lm_solve(
     solver = _build_sharded_solver(
         mesh, opts, axis_name, cam_free is not None, init_lam is not None,
         init_grad0 is not None,
-        check_vma=_solver_check_vma(opts, cam_params.dtype, objpoints),
     )
     cam_free_arg = (
         cam_free if cam_free is not None else jnp.ones_like(cam_params)

@@ -1,7 +1,7 @@
 """Synthetic calibration-rig generator: the framework's fake backend.
 
 The reference has no test suite at all (SURVEY.md §4); its only verification
-is a notebook run on real videos. This module supplies what the TPU build
+is a notebook run on real videos. This module supplies what this package
 needs instead: ground-truth rigs (intrinsics, distortion, extrinsics), board
 trajectories, and rendered corner observations with controllable noise /
 dropout / outliers — so every stage (init, BA, triangulation, detection,

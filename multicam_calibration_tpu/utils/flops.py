@@ -1,12 +1,9 @@
 """Analytic FLOP model for the Schur-LM bundle-adjustment iteration.
 
-VERDICT r1 weak #2: the benchmark reported iterations/s with no
-speed-of-light accounting. This model counts the arithmetic the solver
-actually issues per LM run — split by precision, because on TPU the f32
-18-tangent Jacobian work runs on the MXU at full rate while f64
-(emulated via double-f32 arithmetic) runs ~an order of magnitude slower —
-so bench.py can report achieved FLOP/s and a roofline fraction alongside
-wall-clock.
+This model counts the arithmetic the solver actually issues per LM run —
+split by precision, because the f32 and f64 parts of a run have different
+peak rates — so a benchmark can report achieved FLOP/s and a roofline
+fraction alongside wall-clock.
 
 Counting conventions (documented, deliberately simple):
 - one fused multiply-add = 2 FLOPs;
@@ -23,7 +20,8 @@ PROJ_FLOPS = 130  # per point: 2 rodrigues (~45 ea), 2 transforms, distort+K
 TANGENTS = 18  # 12 camera + 6 pose jacfwd tangents
 
 __all__ = [
-    "lm_flop_model", "lm_flops_detail", "device_peak_flops", "PROJ_FLOPS",
+    "lm_flop_model", "lm_flops_detail", "device_peaks", "device_peak_flops",
+    "PEAKS", "PROJ_FLOPS",
 ]
 
 
@@ -83,30 +81,36 @@ def lm_flop_model(n_cameras, n_frames, n_points, n_iters, nfev,
     }
 
 
-# Peak dense-matmul throughput per chip, FLOP/s. Approximate public numbers;
-# used only to contextualize achieved FLOP/s as a roofline fraction.
-_PEAKS_F32 = {
-    "v4": 137e12,  # 275 Tbf16 -> ~half for f32
-    "v5e": 98.5e12,
-    "v5 lite": 98.5e12,  # device_kind string for v5e chips
-    "v5p": 229.5e12,
-    "v6e": 459e12,
-    "v6 lite": 459e12,
+# Published peaks per device kind (key: a lowercase substring of
+# ``device.device_kind``). H100 SXM, NVIDIA H100 Tensor Core GPU data sheet
+# (dense, no sparsity, at the 700 W power limit): 67 TFLOP/s f32 outside
+# the tensor cores, 34 TFLOP/s f64 (67 TFLOP/s on the f64 tensor cores),
+# 3.35 TB/s of HBM3.
+PEAKS = {
+    "h100": {
+        "f32_flops": 67e12,
+        "f64_flops": 34e12,
+        "f64_tensor_flops": 67e12,
+        "hbm_bytes_per_s": 3.35e12,
+    },
 }
 
 
-def device_peak_flops(device_kind: str):
-    """(peak_f32, peak_f64_emulated) FLOP/s for a device kind, or None.
-
-    TPU has no native f64: XLA emulates it (double-f32 arithmetic) at
-    roughly 1/10 of f32 matmul rate — the factor used here to turn the f32
-    peak into an effective f64 ceiling.
-    """
-    kind = device_kind.lower().replace("tpu ", "")
-    for key, peak in _PEAKS_F32.items():
+def device_peaks(device_kind: str) -> dict:
+    """Peak rates for ``device_kind``; raises KeyError for a device that is
+    not in the table (a roofline against a guessed peak is no number)."""
+    kind = device_kind.lower()
+    for key, peaks in PEAKS.items():
         if key in kind:
-            return peak, peak / 10.0
-    return None
+            return peaks
+    raise KeyError(f"no published peaks for device kind {device_kind!r}")
+
+
+def device_peak_flops(device_kind: str):
+    """(peak_f32, peak_f64) FLOP/s for a device kind. The f64 peak is the
+    tensor-core rate: the least time the device could take."""
+    peaks = device_peaks(device_kind)
+    return peaks["f32_flops"], peaks["f64_tensor_flops"]
 
 
 def lm_flops_detail(n_cameras, n_frames, n_points, n_iters, nfev, wall_s,
@@ -114,11 +118,9 @@ def lm_flops_detail(n_cameras, n_frames, n_points, n_iters, nfev, wall_s,
                     mixed_f32=True):
     """Roofline summary dict for one measured lm_solve run.
 
-    ``mixed_f32``: True for the shipped TPU recipe (jac + assembly + Schur
-    + cost in f32; primal/residual path in the data dtype f64), False for a
-    pure data-dtype run. Used by bench.py and scripts/bench_sweep.py so
-    every recorded row carries the same accounting (VERDICT r2 weak #3:
-    roofline_fraction was computed but never landed in a JSON).
+    ``mixed_f32``: True for the mixed recipe (jac + assembly + Schur + cost
+    in f32; primal/residual path in the data dtype f64), False for a run
+    whose only f32 part is the Jacobian (``jac_dtype="float32"``).
     """
     fm = lm_flop_model(n_cameras, n_frames, n_points, n_iters, nfev,
                        jacobian=jacobian)
@@ -127,7 +129,7 @@ def lm_flops_detail(n_cameras, n_frames, n_points, n_iters, nfev, wall_s,
         f32 = (fm["jac_flops"] + fm["assembly_flops"] + fm["schur_flops"]
                + fm["cost_flops"])
     else:
-        f32 = 0
+        f32 = fm["jac_flops"]
     f64 = total - f32
     detail = {
         "model_tflops": round(total / 1e12, 4),
@@ -139,8 +141,7 @@ def lm_flops_detail(n_cameras, n_frames, n_points, n_iters, nfev, wall_s,
     }
     if n_obs is not None:
         detail["obs_iters_per_s_M"] = round(n_obs * n_iters / wall_s / 1e6, 3)
-    peaks = device_peak_flops(device_kind)
-    if peaks:
-        t_roofline = f32 / peaks[0] + f64 / peaks[1]
-        detail["roofline_fraction"] = round(t_roofline / wall_s, 6)
+    peak_f32, peak_f64 = device_peak_flops(device_kind)
+    t_roofline = f32 / peak_f32 + f64 / peak_f64
+    detail["roofline_fraction"] = round(t_roofline / wall_s, 6)
     return detail

@@ -55,8 +55,8 @@ class TestResponseInvariance:
         yy, xx = np.mgrid[0:480, 0:640]
         ramp = 40.0 + 60.0 * (xx / 640.0) - 35.0 * (yy / 480.0)
         g2 = g + jnp.asarray(ramp[None])
-        r1 = np.asarray(corner_response(g / 255.0, use_pallas=False))
-        r2 = np.asarray(corner_response(g2 / 255.0, use_pallas=False))
+        r1 = np.asarray(corner_response(g / 255.0))
+        r2 = np.asarray(corner_response(g2 / 255.0))
         # interior: Gaussian+derivative stencils see the pad at the border
         sl = (slice(None), slice(8, -8), slice(8, -8))
         np.testing.assert_allclose(r1[sl], r2[sl], atol=1e-12)
@@ -69,10 +69,8 @@ class TestResponseInvariance:
         gain = 0.6 + 0.8 * (xx / 640.0) * (yy / 480.0)
         g = jnp.asarray(view[None], jnp.float64)
         g2 = jnp.asarray((view * gain)[None], jnp.float64)
-        xy1, s1 = find_corner_candidates(g / 255.0, max_candidates=64,
-                                         use_pallas=False)
-        xy2, s2 = find_corner_candidates(g2 / 255.0, max_candidates=64,
-                                         use_pallas=False)
+        xy1, s1 = find_corner_candidates(g / 255.0, max_candidates=64)
+        xy2, s2 = find_corner_candidates(g2 / 255.0, max_candidates=64)
         # Every strong candidate of the flat image persists under the gain
         # field (positions are integer NMS peaks; allow 1 px of drift).
         strong = np.asarray(s1[0] > 0.25 * float(s1[0, 0]))

@@ -87,8 +87,9 @@ class TestIntrinsics:
         assert abs(dist[0]) < 2.0 and abs(dist[1]) < 20.0
 
     def test_batched_matches_sequential(self, rig):
-        """get_intrinsics_batch == per-camera get_intrinsics (the TPU path
-        must produce the same calibration the CPU loop does)."""
+        """get_intrinsics_batch == per-camera get_intrinsics (the
+        camera-batched path must produce the same calibration the per-camera
+        loop does)."""
         batched = init.get_intrinsics_batch(
             rig.all_calib_uvs, rig.calib_objpoints, rig.img_sizes, n_samples=40
         )
@@ -224,8 +225,9 @@ class TestCalibrate:
         """Regression (r4): the accelerator-batched calibrate path produced
         all_calib_poses as np.asarray(jax_array) — a READ-ONLY view — and
         _repair_bad_intrinsics' in-place row write crashed whenever a
-        camera needed repair on TPU. Force the batched path on CPU with a
+        camera needed repair. Force the batched path on CPU with a
         corrupted camera and require calibrate to complete AND repair."""
+        from multicam_calibration_tpu import backend
         from multicam_calibration_tpu.models import initialize as init_mod
 
         rig4 = mct.make_synthetic_rig(
@@ -247,7 +249,7 @@ class TestCalibrate:
             return intr
 
         monkeypatch.setattr(init_mod, "get_intrinsics_batch", corrupted_batch)
-        monkeypatch.setattr(init_mod.jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(backend, "init_camera_batched", lambda p: True)
         ext, intr, poses, tree = init_mod.calibrate(
             rig4.all_calib_uvs, rig4.img_sizes, rig4.calib_objpoints,
             verbose=False, n_samples_for_intrinsics=30,
@@ -372,7 +374,7 @@ class TestBundleAdjust:
 
     def test_jac_dtype_f32_matches_f64(self, rig):
         """jac_dtype='float32' (f32 Jacobians, f64 gradient/solve) must
-        reproduce the pure-f64 optimum — the TPU bench runs this mode."""
+        reproduce the pure-f64 optimum — the bench runs this mode."""
         from multicam_calibration_tpu.models.bundle_adjustment import (
             _params_to_arrays,
         )
@@ -402,7 +404,7 @@ class TestBundleAdjust:
     def test_f32_solver_quality(self, rig):
         """f32 LM (SPD Cholesky solves) lands within 3% of the f64 cost.
 
-        TPU runs f32; the damped Schur system's conditioning (~1/lambda)
+        In f32 the damped Schur system's conditioning (~1/lambda)
         made the previous LU-based f32 solve plateau ~3.5% high. Guards the
         bench.py quality gate (cost <= 1.05x reference)."""
         from multicam_calibration_tpu.models.bundle_adjustment import (

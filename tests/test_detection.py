@@ -1,4 +1,4 @@
-"""Detection tests: TPU detector vs ground truth + cv2 oracle, video layer."""
+"""Detection tests: device detector vs ground truth + cv2 oracle, video layer."""
 import os
 
 import numpy as np
@@ -817,10 +817,10 @@ def test_motion_blur_detection_matches_reference():
 
 class TestFusedStage1:
     def test_fused_stage1_matches_unfused(self):
-        """The TPU single-dispatch stage-1 program (_stage1_fused — one jit
+        """The single-dispatch stage-1 program (_stage1_fused — one jit
         wrapping candidates + device ordering + refine + anchor scores)
-        must be numerically identical to the three-call CPU path: fusion
-        only moves the jit boundary, never the math."""
+        must be numerically identical to the three-call path: fusion only
+        moves the jit boundary, never the math."""
         import jax.numpy as jnp
         from multicam_calibration_tpu.detection.detector import (
             _gray_from_u8,

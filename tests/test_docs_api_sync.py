@@ -76,7 +76,7 @@ def test_every_documented_name_exists():
         # prose/shape/config tokens that appear in backticks
         "mct", "C", "F", "N", "K", "k1", "k2", "p1", "p2", "k3", "rx",
         "python", "pip", "yaml", "json", "jarvis", "gimbal", "h5",
-        "LMOptions", "cpu", "tpu", "jit", "vmap", "grad", "NaN",
+        "LMOptions", "cpu", "gpu", "jit", "vmap", "grad", "NaN",
     }
     unresolved = []
     for name in sorted(names):
